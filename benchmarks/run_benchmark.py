@@ -3,7 +3,7 @@
 API-parity rebuild of the reference benchmark
 (reference: benchmarks/run_benchmark.py — QFT at 10-20 qubits step 2, 5
 trials, mean wall-clock, device vs CPU comparison, optional log-scale plot
-:36-37, :72-172). Runners: the rocq TPU engine (fused and unfused) and a
+:36-37, :72-172). Runners: the rocq engine (fused and unfused) and a
 numpy CPU reference (the default.qubit/Aer analog). Per-phase timers
 (compile vs execute) replace the reference's single wall-clock, and results
 are written as JSON next to the plots.

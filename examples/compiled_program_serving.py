@@ -7,8 +7,8 @@ the observable program, and ``run()`` replays the chain — optional
 parameter-value overrides sweep angles with zero recompiles.
 
 Second act: the same program structure at df64 precision (the double-
-float engine past the v5e fp64 ceiling, docs/FP64_GUIDE.md) — the
-readback contract is unchanged, the result matches to ~1e-13.
+float engine, docs/FP64_GUIDE.md) — the readback contract is unchanged,
+the result matches to ~1e-13.
 """
 
 import numpy as np

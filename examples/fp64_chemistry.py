@@ -2,9 +2,8 @@
 
 The reference selects fp64 at build time (ROCQ_PRECISION_DOUBLE,
 hipStateVec.h:7-15); here one runtime call flips the whole framework —
-and on TPU the state runs as (re, im) f64 float pairs because complex128
-programs abort the x64 rewriter (docs/FP64_GUIDE.md). This example drives
-the full fp64 surface:
+and the state runs as (re, im) f64 float pairs (docs/FP64_GUIDE.md). This
+example drives the full fp64 surface:
 
 1. VQE-H2 with adjoint gradients at 1e-9 agreement vs parameter-shift
    (BASELINE north star: 1e-6)

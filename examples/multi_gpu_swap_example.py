@@ -1,7 +1,7 @@
 """Sharded-statevector index-bit swap over a device mesh (reference
 examples/multi_gpu_swap_example.py + MULTI_GPU_GUIDE.md). On a CPU host run
 with XLA_FLAGS=--xla_force_host_platform_device_count=8 this exercises the
-real all-to-all collective; on a pod slice it rides ICI."""
+real all-to-all collective; across GPUs of one host it rides NVLink."""
 
 import numpy as np
 import jax

@@ -23,7 +23,7 @@ def main():
 
     def cut_expectation(params):
         state = sv.init_state(N)
-        state = execute(state, ir.ops, params, use_pallas=False)
+        state = execute(state, ir.ops, params)
         # MaxCut objective: sum over edges (1 - <Z_a Z_b>) / 2
         total = jnp.zeros((), config.real_dtype())
         for (a, b) in EDGES:
@@ -46,7 +46,7 @@ def main():
 
     # sample bitstrings and check the best sampled cut reaches the optimum
     state = jax.jit(lambda p: sv.state_to_parts(
-        execute(sv.init_state(N), ir.ops, p, use_pallas=False)))(params)
+        execute(sv.init_state(N), ir.ops, p)))(params)
     psi = np.asarray(state[0]) + 1j * np.asarray(state[1])
     probs = np.abs(psi) ** 2
     samples = np.random.default_rng(0).choice(1 << N, size=400,

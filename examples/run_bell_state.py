@@ -1,6 +1,6 @@
 """Bell state on multiple backend architectures (reference
 examples/run_bell_state.py). Builds the circuit once and runs it on the
-local TPU simulator, the Qristal Type B backend, and — when credentials are
+local simulator, the Qristal Type B backend, and — when credentials are
 present — the IonQ Type A API."""
 
 import os
@@ -17,8 +17,8 @@ def main():
     bell_circuit.cx(0, 1)
     print(bell_circuit.to_qasm())
 
-    # --- Local TPU simulator (always available) ---
-    print("\n--- Local TPU simulator backend ---")
+    # --- Local simulator (always available) ---
+    print("\n--- Local simulator backend ---")
     set_target("local")
     backend = get_active_backend()
     job_id = backend.submit_job(bell_circuit.to_qasm(), shots=200)

@@ -1,6 +1,6 @@
 """VQE-H2 written exactly in the reference's examples/vqe_h2.py style —
 ``import rocquantum as rocq``, a params-list kernel, positional Pauli
-strings, get_expval/grad free functions — running unchanged on the TPU
+strings, get_expval/grad free functions — running unchanged on this
 framework through the compatibility shim."""
 
 import numpy as np

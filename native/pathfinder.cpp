@@ -6,7 +6,7 @@
 // contracting that pair (accounting for hyperedge labels still used by other
 // tensors), and contract the cheapest pair. O(k^3) scans over the shrinking
 // tensor list are pure host combinatorics — the natural native-code component
-// of the TPU rebuild (device work is XLA's job).
+// of the JAX rebuild (device work is XLA's job).
 //
 // Cost rule (must stay bit-identical to the Python fallback in
 // rocquantum_tpu/tensornet/pathfinder.py): flops = 8 * out_size * k where

@@ -359,10 +359,9 @@ def create_device_matrix_from_numpy(numpy_array: np.ndarray) -> DeviceBuffer:
 
 
 # --- pinned host-buffer family (hipStateVec.h:296-325) -------------------
-# On TPU there is no user-managed pinned (page-locked) host memory: the
-# runtime stages host<->device transfers through its own buffers, and this
-# stack additionally forbids complex host transfers entirely (states move
-# as (real, imag) float pairs inside jitted programs). The surface is kept
+# JAX has no user-managed pinned (page-locked) host memory: the runtime
+# stages host<->device transfers through its own buffers (states move as
+# (real, imag) float pairs). The surface is kept
 # so binding-level callers port unchanged; "pinned" here is a plain numpy
 # scratch buffer owned by the handle. See COMPONENTS.md "Pinned memory".
 

@@ -1,6 +1,6 @@
-"""rocquantum_tpu — a TPU-native quantum computing framework.
+"""rocquantum_tpu — a JAX quantum computing framework.
 
-A ground-up JAX/XLA/Pallas rebuild with the capabilities of rocQuantum
+A ground-up JAX/XLA rebuild with the capabilities of rocQuantum
 (CUDA-Q-inspired ROCm/HIP simulator suite): state-vector, density-matrix and
 tensor-network simulation engines, a circuit-trace compiler with adjoint
 generation, VQE/QEC application layers, Qiskit/Cirq/PennyLane device plugins,

@@ -61,7 +61,7 @@ def make_reversible_execute(ops: Sequence[GateOp]):
     ParamRef slots into the ``params`` vector.
 
     The forward pass runs through the full fused interpreter (diagonal
-    fusion, Pallas layers, consolidation); the backward sweep fuses runs of
+    fusion, consolidation); the backward sweep fuses runs of
     NON-parameterized gates the same way — a CNOT ring between RY columns
     costs one fused pass each direction instead of one pass per gate. Only
     the parameterized gates step one-by-one (each needs its own

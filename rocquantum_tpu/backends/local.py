@@ -1,4 +1,4 @@
-"""Local TPU-simulator backend.
+"""Local simulator backend.
 
 Not in the reference's registry (its only local path was the mocked Qristal
 CLI): executes submitted circuits on the in-process JAX statevector engine
@@ -17,7 +17,7 @@ from ..qcircuit import QuantumCircuit
 
 
 class LocalTPUBackend(RocqBackend):
-    """Runs jobs on the local JAX/TPU statevector simulator."""
+    """Runs jobs on the local JAX statevector simulator."""
 
     def __init__(self, backend_name: str = "local", shots_seed: int = 0):
         super().__init__(backend_name=backend_name, api_endpoint="local")

@@ -5,7 +5,7 @@ synchronous local execution taking a QuantumCircuit object (not QASM), with
 the same job-id/status/result lifecycle. The reference shelled out to a
 ``qristal`` CLI and then **mocked the stdout histogram** (qristal.py:75-84);
 here, if the ``qristal`` CLI exists it is used for real, and otherwise the
-circuit runs on the local TPU simulator, producing a true histogram.
+circuit runs on the local simulator, producing a true histogram.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from ..qcircuit import QuantumCircuit
 
 class QuantumBrillianceBackend(RocqBackend):
     """Local synchronous execution via the Qristal SDK CLI (if present) or
-    the built-in TPU simulator."""
+    the built-in simulator."""
 
     def __init__(self, backend_name: str = "qristal",
                  api_endpoint: str = "local"):

@@ -91,7 +91,7 @@ def list_command(_args) -> int:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
-        prog="rocq", description="rocQuantum-TPU command line interface")
+        prog="rocq", description="rocQuantum command line interface")
     sub = parser.add_subparsers(dest="command", required=True)
 
     run_p = sub.add_parser("run", help="run a Bell circuit on a backend")

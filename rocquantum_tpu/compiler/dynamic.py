@@ -6,7 +6,7 @@ The reference ran dynamic circuits only through the Python API
 host. Here a whole shot ensemble runs as ONE batched simulation: each batch
 element is one shot, mid-circuit measurements collapse per element
 (Circuit.measure's batched path), and conditioned gates apply per element
-via a vmapped select — no per-shot Python loop, and the TPU sees big
+via a vmapped select — no per-shot Python loop, and the device sees big
 batched programs instead of 2^shots tiny ones.
 """
 

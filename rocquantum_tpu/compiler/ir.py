@@ -1,6 +1,6 @@
 """Circuit intermediate representation.
 
-TPU-native replacement for the reference's MLIR compiler stack: the
+JAX replacement for the reference's MLIR compiler stack: the
 ``quantum`` dialect (rocqCompiler/QuantumOps.td,
 rocquantum/include/rocquantum/Dialect/QuantumOps.td — GenericGateOp with
 ``gate_name`` and ``is_adjoint`` attrs, MeasureOp, IfOp) and the ``sim``

@@ -1,7 +1,7 @@
 """IR transformation passes.
 
 - :func:`adjoint_ir` — the adjoint-generation transform: clone ops in reverse
-  order toggling each gate's ``is_adjoint`` flag (TPU-native equivalent of
+  order toggling each gate's ``is_adjoint`` flag (the JAX equivalent of
   the reference AdjointGenerationPass,
   rocquantum/src/rocqCompiler/Transforms/AdjointGeneration.cpp:26-110).
 - :func:`plan_fusion` — trace-time gate fusion: group adjacent gates whose
@@ -52,173 +52,6 @@ class DiagBlock:
         return tuple(sorted(s))
 
 
-@dataclasses.dataclass
-class PallasBlock:
-    """A run of single-qubit gates and CNOTs applied by the Pallas
-    fused-layer kernel: the whole run costs ~ONE pass over the amplitudes
-    per ~29 covered qubits (plus a complex<->float-pair conversion each
-    side when the caller carries a complex state)."""
-    ops: List[GateOp]
-
-    @property
-    def qubits(self) -> Tuple[int, ...]:
-        s = set()
-        for op in self.ops:
-            s |= set(op.targets) | set(op.controls)
-        return tuple(sorted(s))
-
-
-def fuse_pallas_runs(items: List[object], max_qubit: int,
-                     min_gates: int = 6, num_qubits: int = None,
-                     relabel_reach: int = None) -> List[object]:
-    """Collect runs of uncontrolled 1q gates on qubits <= max_qubit into
-    PallasBlocks (runs shorter than ``min_gates`` aren't worth the
-    float-pair conversion passes). Disjoint items commute past an open
-    run.
-
-    With ``relabel_reach`` set (the kernel's in-tile window, see
-    ops/relabel.py), gates ABOVE the window are accepted too and scheduled
-    via index-bit rotations — but only when the resulting plan beats leaving
-    the high gates to the matmul-consolidation paths; otherwise the run is
-    split back into an in-window PallasBlock plus raw high-qubit ops (1q
-    gates on distinct qubits commute, so the split preserves semantics).
-    """
-    out: List[object] = []
-    block: PallasBlock = None
-
-    def supports(item):
-        if isinstance(item, (FusedBlock, DiagBlock, PallasBlock)):
-            return set(item.qubits)
-        return set(item.targets) | set(item.controls)
-
-    def _sup(op):
-        """Qubit support of an eligible op (2q forms: (control, target))."""
-        name = op.name.upper()
-        if name in ("RZZ", "D2M"):
-            return (op.targets[0], op.targets[1])
-        if name in ("CNOT", "CX", "CZ", "CRZ", "CRX", "CRY"):
-            if op.controls:
-                return (op.controls[0], op.targets[0])
-            return (op.targets[0], op.targets[1])
-        if op.controls:  # controlled 1q (diagonal -> "D2", dense -> "CU")
-            return (op.controls[0], op.targets[0])
-        return (op.targets[0],)
-
-    def eligible(item):
-        if not isinstance(item, GateOp):
-            return False
-        name = item.name.upper()
-        if item.matrix is not None:
-            if name == "D2M":  # generic 2q diagonal: rides as "D2"
-                s = _sup(item)
-                return len(s) == 2 and all(q <= max_qubit for q in s)
-            # dense 2x2 matrix gates ride as "U" / "CU" (one control);
-            # traced matrices (adjoint-grad embeds tracers) are fine — the
-            # kernel takes gate matrices as runtime inputs
-            if getattr(item.matrix, "shape", None) != (2, 2):
-                return False
-            if len(item.targets) != 1 or len(item.controls) > 1:
-                return False
-            return all(q <= max_qubit for q in _sup(item))
-        if name in ("CNOT", "CX"):
-            ok = ((len(item.controls) == 1 and len(item.targets) == 1)
-                  or (not item.controls and len(item.targets) == 2))
-            return ok and all(q <= max_qubit for q in _sup(item))
-        if is_diagonal(item):
-            # diagonals ride the kernel as masked multiplies ("D2" for the
-            # controlled-phase family, "U" for plain 1q diagonals) — the
-            # QFT's H + controlled-phase cascade becomes ONE kernel pass
-            s = _sup(item)
-            nq = len(item.controls) + len(item.targets)
-            return (nq <= 2 and len(s) == nq
-                    and all(q <= max_qubit for q in s))
-        if name in ("CRX", "CRY") or (len(item.controls) == 1
-                                      and len(item.targets) == 1):
-            # controlled dense 1q -> kernel kind "CU" (free high controls)
-            s = _sup(item)
-            return len(s) == 2 and all(q <= max_qubit for q in s)
-        return (not item.controls and len(item.targets) == 1
-                and name not in ("SWAP_BITS", "PERMUTE_BITS", "SWAP")
-                and item.targets[0] <= max_qubit)
-
-    def emit_run(ops):
-        if relabel_reach is None:
-            out.append(PallasBlock(ops=ops))
-            return
-        sups = [_sup(op) for op in ops]
-        # ANCHORS: diagonals are free (grid-resolved bits), a CNOT's
-        # out-of-window control likewise — neither forces pairing/splits
-        def _anchor(op, s):
-            if is_diagonal(op):
-                return ()
-            # every eligible non-diagonal 2q form is (control, target) —
-            # CNOT/CX and the CU family both resolve an out-of-window
-            # control from the grid/pair position, so only the target
-            # anchors
-            if len(s) == 2 and s[0] >= relabel_reach:
-                return (s[1],)
-            return s
-
-        anchors = [_anchor(op, s) for op, s in zip(ops, sups)]
-        high_idx = [i for i, a in enumerate(anchors)
-                    if any(q >= relabel_reach for q in a)]
-        if not high_idx:
-            out.append(PallasBlock(ops=ops))
-            return
-        from ..ops.relabel import plan_full_layer
-        try:
-            plan = plan_full_layer(num_qubits, sups, relabel_reach,
-                                   pair_ok=num_qubits > relabel_reach,
-                                   anchors=anchors)
-        except ValueError:
-            # unschedulable without rotations (pair-bit-only regime at
-            # n > MAX_ROTATION_QUBITS): force the split path below
-            plan = list(range(2 * len(ops) + 2))
-        n_items = len(plan)
-        # old-path cost for the same run: one fused pass for the in-window
-        # gates plus roughly one pass per out-of-window gate
-        if n_items <= 1 + len(high_idx) and n_items < len(ops):
-            out.append(PallasBlock(ops=ops))
-            return
-        # inefficient plan: split back into an in-window block + raw high
-        # ops — ONLY when no high op shares a qubit with a low op (the
-        # split reorders across the run, which is valid only for disjoint
-        # supports); otherwise keep the (dependency-correct) plan
-        high_qubits = {q for i in high_idx for q in sups[i]}
-        low_idx = [i for i in range(len(ops)) if i not in set(high_idx)]
-        if any(set(sups[i]) & high_qubits for i in low_idx):
-            out.append(PallasBlock(ops=ops))
-            return
-        low = [ops[i] for i in low_idx]
-        if len(low) >= min_gates:
-            out.append(PallasBlock(ops=low))
-        else:
-            out.extend(low)
-        out.extend(ops[i] for i in high_idx)
-
-    def flush():
-        nonlocal block
-        if block is not None:
-            if len(block.ops) >= min_gates:
-                emit_run(block.ops)
-            else:
-                out.extend(block.ops)
-            block = None
-
-    for item in items:
-        if eligible(item):
-            if block is None:
-                block = PallasBlock(ops=[])
-            block.ops.append(item)
-        elif block is not None and supports(item) & set(block.qubits):
-            flush()
-            out.append(item)
-        else:
-            out.append(item)
-    flush()
-    return out
-
-
 # Diagonal named gates (incl. implicitly-controlled forms: a controlled
 # diagonal is diagonal).
 _DIAGONAL_NAMES = {"Z", "S", "SDG", "T", "TDG", "RZ", "P", "PHASE",
@@ -235,8 +68,7 @@ def is_diagonal(op: GateOp) -> bool:
 
 def fuse_diagonals(ops: List[object]) -> List[object]:
     """Group consecutive diagonal gates into DiagBlocks; non-diagonal ops on
-    disjoint qubits commute past an open block. Pre-built blocks (e.g.
-    PallasBlocks when the Pallas pass runs first) pass through."""
+    disjoint qubits commute past an open block."""
     out: List[object] = []
     block: DiagBlock = None
 
@@ -244,9 +76,8 @@ def fuse_diagonals(ops: List[object]) -> List[object]:
         nonlocal block
         if block is not None:
             # singletons stay DiagBlocks: the elementwise phase multiply is
-            # one cheap pass, while a lone cross-region controlled-phase on
-            # the dense slice path measured 6.3 ms vs 0.27 ms for an entire
-            # fused 19-gate cascade (n=20, v5e)
+            # one pass, where a lone controlled phase would otherwise take
+            # the dense controlled-slice path
             out.append(block)
             block = None
 
@@ -256,7 +87,7 @@ def fuse_diagonals(ops: List[object]) -> List[object]:
                 block = DiagBlock(ops=[])
             block.ops.append(op)
         else:
-            if isinstance(op, (FusedBlock, DiagBlock, PallasBlock)):
+            if isinstance(op, (FusedBlock, DiagBlock)):
                 support = set(op.qubits)
             else:
                 support = set(op.targets) | set(op.controls)
@@ -296,7 +127,7 @@ def plan_fusion(ops: List[GateOp], max_fuse: int = 2) -> List[object]:
                 emitted.append(b)
 
     for op in ops:
-        if isinstance(op, (DiagBlock, PallasBlock)):
+        if isinstance(op, DiagBlock):
             flush([b for b in open_blocks if set(b.qubits) & set(op.qubits)])
             emitted.append(op)
             continue
@@ -345,7 +176,7 @@ def _consolidate_region(items: List[object], region: set,
     open_block = None
 
     def support(item):
-        if isinstance(item, (FusedBlock, DiagBlock, PallasBlock)):
+        if isinstance(item, (FusedBlock, DiagBlock)):
             return set(item.qubits)
         return set(item.targets) | set(item.controls)
 
@@ -361,13 +192,6 @@ def _consolidate_region(items: List[object], region: set,
 
     for item in items:
         s = support(item)
-        if isinstance(item, PallasBlock):
-            # the pallas kernel already applies its run in one pass; never
-            # re-densify it
-            if s & region:
-                flush()
-            out.append(item)
-            continue
         is_relabel = (not isinstance(item, (FusedBlock, DiagBlock))
                       and item.name in ("SWAP_BITS", "PERMUTE_BITS"))
         if s <= region and not is_relabel:
@@ -386,9 +210,9 @@ def _consolidate_region(items: List[object], region: set,
 def consolidate_low(items: List[object], width: int) -> List[object]:
     """Second fusion stage: merge consecutive items whose qubit support lies
     entirely in {0..width-1} into one FusedBlock over all ``width`` low
-    qubits. That block applies as a single (R, 2^width) @ W matmul — the
-    MXU-native formulation (the per-qubit einsum path degrades ~40x on the
-    lowest index bits). Items fully above the low region commute with the
+    qubits. That block applies as a single (R, 2^width) @ W matmul with
+    contiguous rows, where the per-qubit einsum on the lowest index bits
+    reads strided. Items fully above the low region commute with the
     open block and pass through without flushing it.
     """
     if width < 1:

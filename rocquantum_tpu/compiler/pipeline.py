@@ -7,7 +7,7 @@ rocquantum/src/rocqCompiler/MLIRCompiler.cpp:26-127 —
 initializeModule/loadModuleFromString/getModuleString/dump; plus the
 run_adjoint_generation_pass binding, python/rocq/bindings.cpp:701).
 
-The TPU-native lowering pipeline is circuit-IR -> (fusion, adjoint) passes
+The JAX lowering pipeline is circuit-IR -> (fusion, adjoint) passes
 -> jitted XLA program; "QIR emission" becomes StableHLO text (the portable
 compiler-exchange format of the XLA stack), and the textual circuit IR
 plays the MLIR-module role.
@@ -28,7 +28,7 @@ from .interpreter import compile_ir
 class Compiler:
     """Module-holder + pass-runner + lowering entry points."""
 
-    def __init__(self, num_qubits: int = 0, backend_name: str = "tpu_statevec"):
+    def __init__(self, num_qubits: int = 0, backend_name: str = "statevec"):
         self.backend_name = backend_name
         self.module: Optional[CircuitIR] = None
         if num_qubits:

@@ -5,7 +5,7 @@ operations are calls to QIR-mangled intrinsics
 ``__quantum__qis__<name>__body`` taking opaque ``%Qubit*`` arguments
 (reference: rocqCompiler/passes/SimulatorToQIRPass.cpp:33-40; verified by
 example.py:21-27, which greps the emitted text for
-``call void @__quantum__qis__h__body``). This module is the TPU rebuild's
+``call void @__quantum__qis__h__body``). This module is the JAX rebuild's
 equivalent of that pass: a direct pretty-printer from :class:`CircuitIR`
 to QIR base-profile-shaped LLVM IR text. It exists for interchange and
 verification parity — execution lowers through XLA

@@ -1,7 +1,7 @@
 """Backend registry: set_target / get_active_backend.
 
 API-parity rebuild of reference rocquantum/core.py:13-56, plus a ``local``
-target that runs on the in-process TPU simulator.
+target that runs on the in-process simulator.
 """
 
 from __future__ import annotations

@@ -52,9 +52,8 @@ class DensityMatrixState:
         self._queue: List[tuple] = []
 
     def _use_pair(self) -> bool:
-        """fp64 density states run the float-pair engine (ops/pairdm.py):
-        complex128 programs abort this TPU stack's x64 rewriter. Sticky
-        once the state exists."""
+        """fp64 density states run the float-pair engine (ops/pairdm.py).
+        Sticky once the state exists."""
         if self._rho is not None:
             return isinstance(self._rho, tuple)
         return config.get_precision() == "double"

@@ -112,8 +112,7 @@ class StateVectorBackend(_BaseBackend):
                     vals = tuple(ParamRef(i) for i in vals[1:])
                 ops.append(GateOp(name, tuple(tgt), tuple(ctrl), tuple(vals)))
             if config.get_precision() == "double":
-                # fp64: the float-pair engine (complex128 aborts the TPU
-                # x64 rewriter — docs/FP64_GUIDE.md)
+                # fp64: the float-pair engine (docs/FP64_GUIDE.md)
                 from ..compiler.ir import CircuitIR
                 from ..ops import pairsim
                 run_pair = pairsim.compile_pair_ir(CircuitIR(n, ops))

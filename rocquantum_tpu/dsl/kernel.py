@@ -181,7 +181,7 @@ class QuantumKernel:
         return emit_qir_text(self.ir())
 
     def stablehlo(self, **kwargs) -> str:
-        """StableHLO text of the jitted simulation program (the TPU-native
+        """StableHLO text of the jitted simulation program (the JAX
         'compile to the execution format')."""
         import jax
         from ..ops import statevec as sv

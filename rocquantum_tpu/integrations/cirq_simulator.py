@@ -21,7 +21,7 @@ CIRQ_TO_ROCQ_GATES = {
 
 
 class RocQuantumSimulator(cirq.SimulatesFinalState, cirq.SimulatesSamples):
-    """cirq simulator running on the JAX/TPU statevector engine."""
+    """cirq simulator running on the JAX statevector engine."""
 
     def _get_final_statevector(self, circuit, qubit_order):
         q_map = {q: i for i, q in enumerate(qubit_order)}

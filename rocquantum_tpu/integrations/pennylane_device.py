@@ -24,9 +24,9 @@ PENNYLANE_TO_ROCQ_GATES = {
 
 
 class RocQDevice(QubitDevice):
-    """PennyLane device running on the JAX/TPU statevector engine."""
+    """PennyLane device running on the JAX statevector engine."""
 
-    name = "rocQuantum TPU Simulator Device"
+    name = "rocQuantum Simulator Device"
     short_name = "rocquantum.qpu"
     pennylane_requires = ">=0.30"
     version = "0.1.0"

@@ -20,7 +20,7 @@ from ..simulator import QuantumSimulator
 
 
 class RocQuantumBackend(BackendV2):
-    """Qiskit backend running on the JAX/TPU statevector simulator."""
+    """Qiskit backend running on the JAX statevector simulator."""
 
     def __init__(self, provider=None, **kwargs):
         super().__init__(provider=provider, name="rocq_simulator", **kwargs)

@@ -1,9 +1,8 @@
-"""Float-pair density-matrix engine: fp64 open-system simulation on TPU.
+"""Float-pair density-matrix engine: fp64 open-system simulation.
 
 The double-precision twin of ops/density.py, built on ops/pairsim.py: rho is
-the flattened ``(2^(2n),)`` matrix held as ``(re, im)`` REAL f64 arrays (the
-TPU x64 rewriter cannot execute complex128 programs — see pairsim's module
-docstring). Row (ket) bits are the HIGH n index bits, exactly like the
+the flattened ``(2^(2n),)`` matrix held as ``(re, im)`` REAL f64 arrays
+(see pairsim's module docstring). Row (ket) bits are the HIGH n index bits, exactly like the
 complex engine, so ``U rho U†`` applies the gate's rows at ``q + n`` and the
 CONJUGATED rows at ``q``; a Kraus channel applies the dense superoperator
 ``S = sum_i K_i (x) conj(K_i)`` over the (col, row) bit pair
@@ -13,7 +12,7 @@ hipStateVec.h:7-15).
 
 Arithmetic discipline (same as pairsim): anything feeding the STATE or an
 exact expectation uses strictly FLAT f64 elementwise math + FLAT full
-reductions (the two f64 forms this TPU stack executes exactly); marginal
+reductions; marginal
 histograms feed only sampling draws / host readback, so they downcast the
 exactly-computed diagonal to f32 and use the ordinary view machinery.
 """

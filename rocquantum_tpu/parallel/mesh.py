@@ -3,7 +3,7 @@
 Replaces the reference's multi-GPU handle setup (per-GPU streams, rocblas
 handles, and rcclCommInitRank communicators,
 test_hipStateVec_multi_gpu.cpp:13-25, MULTI_GPU_GUIDE.md:15-27) with
-jax.sharding.Mesh: XLA owns the collectives over ICI; there are no
+jax.sharding.Mesh: XLA owns the collectives over NVLink; there are no
 communicators to manage.
 """
 
@@ -53,7 +53,7 @@ def make_mesh_2d(dp: int, sv: int, devices: Optional[Sequence] = None) -> Mesh:
 def make_mesh_multislice(dcn: int, sv: int,
                          devices: Optional[Sequence] = None) -> Mesh:
     """(slice, amplitude) mesh for multi-slice deployments: the amplitude
-    axis spans BOTH the cross-slice DCN axis and the intra-slice ICI axis
+    axis spans BOTH the cross-host DCN axis and the intra-host NVLink axis
     (top log2(dcn) index bits select the slice; the reference's roadmap-only
     MPI cluster scaling, ROADMAP.md:28). On a single slice this is exercised
     with virtual devices; the sharding design is mesh-shape agnostic."""

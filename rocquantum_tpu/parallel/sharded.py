@@ -1,6 +1,6 @@
-"""Sharded state-vector simulation over a TPU mesh.
+"""Sharded state-vector simulation over a device mesh.
 
-TPU-native replacement for the reference's multi-GPU distribution
+JAX replacement for the reference's multi-GPU distribution
 (reference: rocquantum/src/hipStateVec/MULTI_GPU_GUIDE.md — bit-sliced state
 where the top M = log2(P) index bits select the device :19-24;
 rocsvSwapIndexBits localizing global qubits via count/pack kernels +
@@ -15,7 +15,7 @@ partitioner:
 
 * gates on LOCAL (low) qubits partition trivially — zero communication;
 * gates on GLOBAL (high) qubits: the same einsum, with a sharding
-  constraint pinning the output layout, makes XLA emit the ICI collective
+  constraint pinning the output layout, makes XLA emit the collective
   (the all-to-all the reference hand-rolled with count/pack/Alltoallv);
 * probability/expectation reductions partition into local reductions +
   psum (the rcclAllReduce analog);
@@ -32,6 +32,7 @@ from __future__ import annotations
 import jax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
+from .. import config
 from ..ops import statevec as sv
 from .mesh import DCN_AXIS, SV_AXIS
 
@@ -46,7 +47,7 @@ def _amp_axes(mesh: Mesh, axis_name: str = SV_AXIS):
 
 def num_global_qubits(mesh: Mesh, axis_name: str = SV_AXIS) -> int:
     """M = log2(P): number of device-selecting (global) qubits
-    (MULTI_GPU_GUIDE.md:21). Spans DCN x ICI on multi-slice meshes."""
+    (MULTI_GPU_GUIDE.md:21). Spans DCN x NVLink on multi-slice meshes."""
     axes = _amp_axes(mesh, axis_name)
     axes = (axes,) if isinstance(axes, str) else axes
     size = 1
@@ -75,18 +76,35 @@ def shard_state(state: jax.Array, mesh: Mesh,
     return jax.device_put(state, state_sharding(mesh, axis_name))
 
 
+def sharded_zero_state(num_qubits: int, sharding: NamedSharding,
+                       dtype=None) -> jax.Array:
+    """|0...0> made shard by shard under a flat ``sharding``: every device
+    writes its own slice and only the first holds the 1. No op sees a
+    global index: XLA's partitioner computes shard offsets of a global pad
+    or scatter in int32, which overflows on states of 2^31 amplitudes or
+    more (a 32-qubit state over four H100s read norms of 0 and 3 that
+    way). Traceable inside jit."""
+    dtype = dtype or config.complex_dtype()
+    axes = sharding.spec[0]
+    names = (axes,) if isinstance(axes, str) else tuple(axes)
+    shards = 1
+    for a in names:
+        shards *= sharding.mesh.shape[a]
+
+    def init():
+        first = (jax.lax.axis_index(names) == 0).astype(dtype)
+        return sv.one_hot((1 << num_qubits) // shards, 0, dtype) * first
+
+    return jax.shard_map(init, mesh=sharding.mesh, in_specs=(),
+                         out_specs=sharding.spec)()
+
+
 def sharded_init_state(num_qubits: int, mesh: Mesh,
                        axis_name: str = SV_AXIS) -> jax.Array:
     """|0...0> born sharded (rocsvInitializeDistributedState analog,
     hipStateVec.h:105): each device fills its slice, no host round-trip."""
     sharding = state_sharding(mesh, axis_name)
-
-    @jax.jit
-    def init():
-        state = sv.init_state(num_qubits)
-        return jax.lax.with_sharding_constraint(state, sharding)
-
-    return init()
+    return jax.jit(lambda: sharded_zero_state(num_qubits, sharding))()
 
 
 def swap_index_bits_sharded(state: jax.Array, q1: int, q2: int,
@@ -94,7 +112,7 @@ def swap_index_bits_sharded(state: jax.Array, q1: int, q2: int,
     """Exchange index bits q1 and q2 on a sharded state.
 
     The local<->global case is the reference's rcclAlltoallv path
-    (GUIDE:44-51) — XLA lowers the constrained transpose to an ICI
+    (GUIDE:44-51) — XLA lowers the constrained transpose to an
     all-to-all. local<->local is a pure local permutation
     (local_bit_swap_permutation_kernel analog); global<->global (the case
     the reference left NOT_IMPLEMENTED, GUIDE:50) also just works.

@@ -3,7 +3,7 @@
 API-parity rebuild of the reference solver
 (reference: rocquantum/solvers/vqe_solver.py — Optimizer strategy ABC,
 SciPyOptimizer wrapper, VQE_Solver.solve recording intermediate results),
-plus a TPU fast path: ``use_adjoint_gradients=True`` feeds the optimizer an
+plus a fast path: ``use_adjoint_gradients=True`` feeds the optimizer an
 analytic jacobian from one jitted ``jax.value_and_grad`` program per
 evaluation instead of 2P parameter-shift circuit executions.
 """

@@ -1,6 +1,6 @@
 """Tensor-network contraction executor with memory-limited slicing and SVD.
 
-TPU-native rebuild of the reference hipTensorNet engine
+JAX rebuild of the reference hipTensorNet engine
 (reference: rocquantum/src/hipTensorNet/hipTensorNet.cpp —
 rocTensorContractWithRocBLAS permute->GEMM :74-196, plan replay
 TensorNetwork<T>::contract :234-313, slicing: findSlicingPoint :318-396,
@@ -8,9 +8,9 @@ selectSliceIndex (largest free index) :398-448, executeSlicedContraction
 (sliced views + partial contractions + accumulate) :450-569; SVD
 rocTensorSVD :628-680; WorkspaceManager rocWorkspaceManager.h:12-63).
 
-Design differences, TPU-first:
+Design differences:
   * each pairwise contraction is one jnp.einsum — XLA fuses the permute +
-    GEMM the reference hand-rolled (and schedules MXU tiling);
+    GEMM the reference hand-rolled;
   * the whole plan traces into ONE jitted program per (network structure,
     config); no workspace bump allocator — XLA owns memory;
   * slicing runs as a lax.fori_loop whose body contracts ONE slab (inputs

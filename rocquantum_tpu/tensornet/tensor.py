@@ -1,6 +1,6 @@
 """Labeled tensors.
 
-TPU-native analog of the reference's ``rocTensor`` struct (device pointer,
+JAX analog of the reference's ``rocTensor`` struct (device pointer,
 dims, string labels, strides, ownership — rocTensorUtil.h:28-177) and its
 utilities: N-D permutation (rocTensorPermute, rocTensorUtil.cpp:31-140 +
 PermutationKernels.hip) and the einsum-spec parser
@@ -37,8 +37,7 @@ class Tensor:
     def from_numpy(cls, array: np.ndarray, labels: Sequence[str],
                    dtype=None) -> "Tensor":
         """Upload a host array. Complex data is shipped as a (real, imag)
-        float pair and combined on device — TPU backends reject complex
-        buffers that did not originate in a compiled program."""
+        float pair and combined on device."""
         import jax
         dtype = dtype or config.complex_dtype()
         array = np.asarray(array)

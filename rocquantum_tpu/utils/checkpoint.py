@@ -4,8 +4,8 @@ The reference had none (SURVEY §5: "Checkpoint/resume: none"); its only
 primitive was full state readback (rocsvGetStateVectorFull,
 hipStateVec.cpp:691). Here: save/restore of statevector and density-matrix
 states, including sharded states (saved per-shard-compatible as a single
-host array, restored onto any mesh). Complex never crosses the device
-boundary on TPU, so files hold (real, imag) float pairs.
+host array, restored onto any mesh). Files hold (real, imag) float
+pairs.
 """
 
 from __future__ import annotations

@@ -51,7 +51,7 @@ class TestReversibleVJP:
 
         def loss_plain(p):
             s = sv.init_state(n)
-            s = execute(s, ops, p, fuse=False, use_pallas=False)
+            s = execute(s, ops, p, fuse=False)
             return sv.expval_z(s, 0) + 0.5 * sv.expval_pauli_string(
                 s, [("X", 1)])
 
@@ -269,7 +269,7 @@ class TestFusedBackwardGroups:
 
         def loss_plain(p):
             s = sv.init_state(n)
-            s = execute(s, ops, p, fuse=False, use_pallas=False)
+            s = execute(s, ops, p, fuse=False)
             return (sv.expval_z(s, 0)
                     + 0.3 * sv.expval_pauli_string(s, [("Y", 2)])
                     + 0.2 * sv.expval_pauli_string(s, [("X", 3)]))

@@ -253,8 +253,8 @@ class TestB1PerGateSurface:
 
 def test_pinned_buffer_family():
     """hipStateVec.h:296-325 pinned-memory surface: grow-only ensure,
-    pointer readback, free. On TPU this is a documented numpy-scratch
-    shim (no user-managed pinned host memory exists)."""
+    pointer readback, free. Here this is a documented numpy-scratch
+    shim (JAX has no user-managed pinned host memory)."""
     from rocq import _rocq_hip_backend as b
 
     h = b.RocsvHandle()

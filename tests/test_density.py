@@ -186,7 +186,7 @@ class TestMeasurement:
 
 def test_wide_kraus_uses_per_term_accumulate():
     """A 4-target Kraus channel takes the per-term path (the dense superop
-    would need a rank-17 view, past the TPU compiler's limit) and must
+    would need a rank-17 view) and must
     equal the dense-matrix math."""
     import jax
     n = 4

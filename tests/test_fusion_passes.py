@@ -7,8 +7,8 @@ import jax.numpy as jnp
 
 from rocquantum_tpu.compiler.ir import CircuitIR, GateOp, ParamRef
 from rocquantum_tpu.compiler.passes import (
-    DiagBlock, FusedBlock, PallasBlock, consolidate_high, consolidate_low,
-    fuse_diagonals, fuse_pallas_runs, is_diagonal, plan_fusion)
+    DiagBlock, FusedBlock, consolidate_high, consolidate_low,
+    fuse_diagonals, is_diagonal, plan_fusion)
 from rocquantum_tpu.compiler.interpreter import execute, parametrize
 from rocquantum_tpu.ops import statevec as sv
 
@@ -46,45 +46,6 @@ class TestDiagonalFusion:
         assert len(blocks) == 1 and len(blocks[0].ops) == 2
 
 
-class TestPallasRunCollection:
-    def test_run_collection_threshold(self):
-        ops = [g("H", [q]) for q in range(8)]
-        out = fuse_pallas_runs(ops, max_qubit=17, min_gates=6)
-        assert len(out) == 1 and isinstance(out[0], PallasBlock)
-        short = fuse_pallas_runs([g("H", [0]), g("H", [1])], 17, min_gates=6)
-        assert all(isinstance(o, GateOp) for o in short)
-
-    def test_controlled_and_high_gates_excluded(self):
-        # CNOTs now JOIN the fused run (in-kernel CNOT path); genuinely
-        # controlled gates (CRZ etc.) and out-of-range gates stay out
-        ops = [g("H", [q]) for q in range(6)] + \
-              [g("CNOT", [1], [0])] + [g("H", [q]) for q in range(6)]
-        out = fuse_pallas_runs(ops, max_qubit=17, min_gates=6)
-        assert len(out) == 1 and isinstance(out[0], PallasBlock)
-        assert len(out[0].ops) == 13
-        # controlled DIAGONALS (CRZ/CZ/controlled-P) join as "D2" masked
-        # multiplies; controlled DENSE 1q gates (CRY/CRX) join as "CU"
-        ops_d = [g("H", [q]) for q in range(6)] + \
-                [g("CRZ", [1], [0], [0.3])] + [g("H", [q]) for q in range(6)]
-        out_d = fuse_pallas_runs(ops_d, max_qubit=17, min_gates=6)
-        assert len(out_d) == 1 and isinstance(out_d[0], PallasBlock)
-        ops_c = [g("H", [q]) for q in range(6)] + \
-                [g("CRY", [1], [0], [0.3])] + [g("H", [q]) for q in range(6)]
-        out_c = fuse_pallas_runs(ops_c, max_qubit=17, min_gates=6)
-        assert len(out_c) == 1 and isinstance(out_c[0], PallasBlock)
-        # multi-controlled gates still stay out
-        ops_m = [g("H", [q]) for q in range(6)] + \
-                [GateOp("UNITARY", (2,), (0, 1), (),
-                        np.eye(2, dtype=np.complex128))] + \
-                [g("H", [q]) for q in range(6)]
-        out_m = fuse_pallas_runs(ops_m, max_qubit=17, min_gates=6)
-        assert any(isinstance(o, GateOp) and o.controls == (0, 1)
-                   for o in out_m)
-        # gate above the kernel range never joins
-        out2 = fuse_pallas_runs([g("H", [20])] * 7, max_qubit=17)
-        assert all(isinstance(o, GateOp) for o in out2)
-
-
 class TestConsolidation:
     def test_low_high_regions(self):
         ops = [g("H", [0]), g("T", [1]), g("H", [7]), g("H", [6]),
@@ -114,10 +75,8 @@ class TestPipelineEquivalence:
         ir = random_circuit_ir(n, 20, seed=seed)
         ops, values = parametrize(ir.ops)
         p = jnp.asarray(values, jnp.float32)
-        base = execute(sv.init_state(n), ops, p, fuse=False,
-                       use_pallas=False)
-        full = execute(sv.init_state(n), ops, p, low_width=4, high_width=4,
-                       use_pallas=False)
+        base = execute(sv.init_state(n), ops, p, fuse=False)
+        full = execute(sv.init_state(n), ops, p, low_width=4, high_width=4)
         np.testing.assert_allclose(np.asarray(jnp.abs(base - full)),
                                    0, atol=1e-5)
 
@@ -125,9 +84,8 @@ class TestPipelineEquivalence:
 class TestLaneRegionLayoutHazard:
     def test_cross_lane_gate_avoids_exposed_views(self):
         """Regression: H(25) + CNOT(25->0) at n=26 must not lower to
-        exposed-view einsums with sub-lane trailing dims — TPU materialized
-        them at 64x padding (32 GB for a 0.5 GB state). The roll-select
-        path keeps all buffers 1-D."""
+        exposed-view einsums with size-1 trailing dims on qubit 0; the
+        flip-select path keeps every view of rank <= 3."""
         import jax
         import jax.numpy as jnp
         from rocquantum_tpu.compiler.interpreter import compile_ir
@@ -144,7 +102,7 @@ class TestLaneRegionLayoutHazard:
         assert "x2x1xcomplex" not in txt
 
     def test_roll_select_matches_reference(self):
-        """roll-select path == dense reference for controlled/plain gates
+        """flip-select path == dense reference for controlled/plain gates
         with lane-region targets at n just above the lane boundary."""
         import jax.numpy as jnp
         from rocquantum_tpu.ops import statevec as sv
@@ -154,7 +112,7 @@ class TestLaneRegionLayoutHazard:
         v = (v / np.linalg.norm(v)).astype(np.complex64)
         u = rng.normal(size=(2, 2)) + 1j * rng.normal(size=(2, 2))
         state = jnp.asarray(v)
-        got = sv._roll_select_apply(state, jnp.asarray(u, jnp.complex64),
+        got = sv._flip_select_apply(state, jnp.asarray(u, jnp.complex64),
                                     [2], [8, 5])
         # reference via dense controlled construction
         full = np.zeros((1 << n, 1 << n), complex)
@@ -168,41 +126,3 @@ class TestLaneRegionLayoutHazard:
                 full[col, col] = 1.0
         expected = full @ v
         np.testing.assert_allclose(np.asarray(got), expected, atol=1e-5)
-
-
-class TestFreeDiagonalScheduling:
-    """Diagonal gates are FREE in the kernel planner (out-of-window bits
-    resolve from the grid position) and both-high CNOTs rewrite to
-    H-CZ-H, halving their pair-slot cost."""
-
-    def test_free_diagonals_do_not_consume_pairs(self):
-        from rocquantum_tpu.ops.relabel import plan_full_layer
-        n, reach = 24, 17
-        sups = [(q,) for q in range(reach)] + \
-               [(18, 20), (17, 23), (22, 22)]
-        free = [False] * reach + [True, True, True]
-        plan = plan_full_layer(n, sups, reach, free=free)
-        assert len(plan) == 1
-        assert plan[0].pair_bits == ()
-
-    def test_high_cnot_ring_pass_count(self):
-        # the n=29 2-layer RY+CNOT-ring body: H-CZ-H rewriting packs 3
-        # chain CNOTs per 3-pair pass (was 2) -> 8 passes, down from 12
-        from rocquantum_tpu.ops.relabel import plan_full_layer
-        n, reach = 29, 17
-        kinds, sups = [], []
-        for _ in range(2):
-            for q in range(n):
-                kinds.append("U")
-                sups.append((q,))
-            for q in range(n):
-                c, t = q, (q + 1) % n
-                if min(c, t) >= reach:
-                    kinds += ["U", "D2", "U"]
-                    sups += [(t,), (c, t), (t,)]
-                else:
-                    kinds.append("CNOT")
-                    sups.append((c, t))
-        plan = plan_full_layer(n, sups, reach,
-                               free=[k == "D2" for k in kinds])
-        assert len(plan) <= 8

@@ -152,71 +152,66 @@ def test_sharded_density_matrix():
 
 
 @pytest.mark.parametrize("seed", range(6))
-def test_pallas_paths_match_plain_engine_fuzz(seed, monkeypatch):
-    """Random circuits at kernel-relevant sizes: the full Pallas pipeline
-    (fused 1q+CNOT runs, pair-bit blocks, free-bit diagonals, H-CZ-H
-    high-CNOT rewriting — interpret mode) must match the plain XLA engine
-    bit-for-tolerance."""
-    monkeypatch.setenv("ROCQ_PALLAS_INTERPRET", "1")
+def test_pallas_paths_match_plain_engine_fuzz(seed):
+    """Random circuits through the full plain pipeline (diagonal fusion,
+    2-qubit fusion, low/high consolidation at the default widths, roll-
+    select on low bits, controlled slice write-backs) match a dense numpy
+    reference."""
+    import _np_ref
     rng = np.random.default_rng(100 + seed)
-    if seed >= 4:
-        # larger sizes: multiple out-of-window bits — free-bit D2 and the
-        # both-high CNOT rewrite engage
-        n = int(rng.integers(19, 22))
-    else:
-        n = int(rng.integers(16, 19))  # spans the pair-bit regimes
+    n = int(rng.integers(10, 14))
     ir = CircuitIR(n)
-    k = 0
+    ref_ops = []
     for _ in range(40):
         kind = rng.integers(0, 5)
         q = int(rng.integers(0, n))
         q2 = int((q + 1 + rng.integers(0, n - 1)) % n)
         if kind == 0:
-            ir.add(str(rng.choice(["RY", "RX", "RZ"])), [q],
-                   params=[float(rng.normal())])
+            name, th = str(rng.choice(["RY", "RX", "RZ"])), float(rng.normal())
+            ir.add(name, [q], params=[th])
+            ref_ops.append((name, [q], [], [th]))
         elif kind == 1:
-            ir.add(str(rng.choice(["H", "X", "S", "T", "Y"])), [q])
+            name = str(rng.choice(["H", "X", "S", "T", "Y"]))
+            ir.add(name, [q])
+            ref_ops.append((name, [q], [], []))
         elif kind == 2:
             ir.add("CNOT", [q2], controls=[q])
+            ref_ops.append(("CNOT", [q2], [q], []))
         elif kind == 3:
-            # controlled dense 1q -> the kernel's "CU" path (free/pair
-            # controls included: q spans the full range)
-            ir.add(str(rng.choice(["CRY", "CRX"])), [q2], controls=[q],
-                   params=[float(rng.normal())])
+            name, th = str(rng.choice(["CRY", "CRX"])), float(rng.normal())
+            ir.add(name, [q2], controls=[q], params=[th])
+            ref_ops.append((name, [q2], [q], [th]))
         else:
-            # controlled-phase family + RZZ -> the kernel's "D2" path
             name = str(rng.choice(["CZ", "CRZ", "P", "RZZ"]))
+            th = float(rng.normal())
             if name == "RZZ":
-                ir.add("RZZ", [q, q2], params=[float(rng.normal())])
+                ir.add("RZZ", [q, q2], params=[th])
+                ref_ops.append(("RZZ", [q, q2], [], [th]))
             else:
-                params = [float(rng.normal())] if name != "CZ" else []
+                params = [th] if name != "CZ" else []
                 ir.add(name, [q2], controls=[q], params=params)
+                ref_ops.append((name, [q2], [q], params))
     pops, values = parametrize(ir.ops)
     params = jnp.asarray(values, jnp.float32)
 
-    from rocquantum_tpu.compiler.interpreter import clear_cache, execute
-    clear_cache()
-    with_pallas = jax.jit(
-        lambda p: execute(sv.init_state(n), pops, p))(params)
-    plain = jax.jit(
-        lambda p: execute(sv.init_state(n), pops, p, use_pallas=False))(
-            params)
-    np.testing.assert_allclose(np.asarray(with_pallas), np.asarray(plain),
+    from rocquantum_tpu.compiler.interpreter import default_widths, execute
+    low, high = default_widths(n)
+    got = jax.jit(lambda p: execute(sv.init_state(n), pops, p,
+                                    low_width=low, high_width=high))(params)
+    np.testing.assert_allclose(np.asarray(got), _np_ref.run(n, ref_ops),
                                atol=3e-5, err_msg=f"seed={seed} n={n}")
-    clear_cache()
 
 
 def test_fuzz_flush_plan_cache_hits(monkeypatch):
     """Plan-cache correctness insurance: structurally-identical circuits
     with DIFFERENT angles must produce correct states when the second one
-    rides the cached plan — across complex/pair32 carries, swap-elision
+    rides the cached plan — across swap-elision
     layout changes, multi-flush (measure boundaries skipped: collapse is
     stochastic), and both density conjugation sides (RZ/U3)."""
     import rocquantum_tpu as rocq
     from rocquantum_tpu import api as api_mod
     from rocquantum_tpu import density_circuit as dcm
 
-    monkeypatch.setenv("ROCQ_PALLAS_INTERPRET", "1")
     rng = np.random.default_rng(42)
     names1q = ["H", "X", "RY", "RZ", "RX", "S", "T"]
     n = 6
@@ -277,7 +272,7 @@ def test_fuzz_flush_plan_cache_hits(monkeypatch):
         a2 = rng.uniform(-np.pi, np.pi, size=n_angles)
         # first run populates the plan caches; second takes the hit path
         api_mod._FLUSH_PLAN_CACHE.clear()
-        dcm._DM_PLAN_CACHE.clear()
+        dcm._DM_RUN_CACHE.clear()
         sv1 = run_sv(structure, a1)
         sv2_cached = run_sv(structure, a2)
         # fresh-cache reference for the second angle set
@@ -289,7 +284,7 @@ def test_fuzz_flush_plan_cache_hits(monkeypatch):
 
         rho1 = run_dm(structure, a1)
         rho2_cached = run_dm(structure, a2)
-        dcm._DM_PLAN_CACHE.clear()
+        dcm._DM_RUN_CACHE.clear()
         rho2_fresh = run_dm(structure, a2)
         np.testing.assert_allclose(rho2_cached, rho2_fresh, atol=1e-5,
                                    err_msg=f"dm plan-cache trial {trial}")

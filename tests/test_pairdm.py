@@ -1,7 +1,6 @@
 """fp64 float-pair density engine (ops/pairdm.py): equivalence vs the
 complex density engine, and the pair-mode DensityMatrixState /
-DensityCircuit surfaces (the fp64 open-system path TPU's x64 rewriter
-forces — c128 programs abort libtpu)."""
+DensityCircuit surfaces (the fp64 open-system path)."""
 
 import numpy as np
 import pytest

@@ -1,6 +1,6 @@
 """Float-pair (fp64-safe) simulation path: equivalence vs the complex
-engine, and pair-mode adjoint gradients (the chemistry-accuracy path the
-TPU x64 rewriter forces — see ops/pairsim.py)."""
+engine, and pair-mode adjoint gradients (the chemistry-accuracy path of
+the double-precision engine — see ops/pairsim.py)."""
 
 import numpy as np
 import pytest
@@ -53,8 +53,7 @@ def test_pair_matches_complex_engine(seed, double_precision):
     rng = np.random.default_rng(seed)
     ir = _random_ir(n, rng)
 
-    state = jax.jit(lambda: execute(sv.init_state(n), list(ir.ops), None,
-                                    use_pallas=False))()
+    state = jax.jit(lambda: execute(sv.init_state(n), list(ir.ops), None))()
     re, im = pairsim.init_pair(n)
 
     def run_pair(re, im):
@@ -93,8 +92,7 @@ def test_pair_expectations_match(double_precision):
     n = 4
     rng = np.random.default_rng(7)
     ir = _random_ir(n, rng, depth=20)
-    state = jax.jit(lambda: execute(sv.init_state(n), list(ir.ops), None,
-                                    use_pallas=False))()
+    state = jax.jit(lambda: execute(sv.init_state(n), list(ir.ops), None))()
 
     def run_pair():
         re, im = pairsim.init_pair(n)
@@ -113,8 +111,8 @@ def test_pair_expectations_match(double_precision):
 
 class TestPairCircuit:
     """fp64 Circuits run the pair engine end to end (flush, measurement,
-    sampling, readback) — the path TPU's x64 rewriter forces (c128
-    programs abort libtpu; see ops/pairsim.py)."""
+    sampling, readback) — the double-precision path (see
+    ops/pairsim.py)."""
 
     def _make(self, seed=3):
         sim = rocq.Simulator(seed=seed)
@@ -139,8 +137,7 @@ class TestPairCircuit:
         ir = CircuitIR(3)
         for name, tg, ct, ps in ops:
             ir.add(name, tg, controls=ct, params=ps)
-        want = jax.jit(lambda: execute(sv.init_state(3), list(ir.ops), None,
-                                       use_pallas=False))()
+        want = jax.jit(lambda: execute(sv.init_state(3), list(ir.ops), None))()
         np.testing.assert_allclose(psi, np.asarray(want), atol=1e-12)
 
     def test_measure_collapse_and_sample(self, double_precision):
